@@ -1,19 +1,19 @@
-"""On-chip capability benchmark: timed, SER-gated decode of the
-non-flagship configurations a skeptic would probe first (VERDICT r3
-item 4) — bit-exact mode at the FULL reference operating point and the
-4x4 wideband preset — on the attached TPU.
+"""Device capability benchmark: timed, SER-gated decode of the
+non-flagship configurations — bit-exact mode at the FULL reference
+operating point, the 4x4 wideband preset, and the FEC / ML / SFO
+capability rows — on JAX's default device.
 
-bench.py times the flagship robust-mode 2x2; the 12-row capability
-matrix (benchmarks/capability_matrix.py) checks correctness on the CPU
-mesh.  This bridges the two: full-size decodes of the reference-quirk
+bench.py times the flagship robust-mode 2x2; the capability matrix
+(benchmarks/capability_matrix.py) checks correctness at small dims.
+This bridges the two: full-size decodes of the reference-quirk
 (bit_exact=True: identity-biased Ghat, per-code timing argmax,
-framing.cc:302-319) and 4x4 configurations, each measured with the same
-sustained fetch-backed-barrier methodology as bench.py and gated on its
+framing.cc:302-319) and 4x4 configurations, each measured as sustained
+wall time (queued dispatches, one block_until_ready) and gated on its
 symbol error rate.
 
   python benchmarks/capability_bench.py [--frames N] [--iters K] [--cpu]
 
-Prints one JSON line per configuration.
+Prints one JSON line per configuration, each naming its platform.
 """
 
 from __future__ import annotations
@@ -38,13 +38,9 @@ def main():
 
     import jax
 
-    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                               "/tmp/rub_mimo_jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from rub_mimo_tpu.utils import compile_cache
+
+    compile_cache.enable()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
@@ -54,12 +50,9 @@ def main():
     from rub_mimo_tpu.io import simulator
     from rub_mimo_tpu.models import presets
     from rub_mimo_tpu.pipeline import rx
-    from rub_mimo_tpu.utils.transfer import to_host
-
-    sum_fn = jax.jit(lambda x: jnp.sum(x.astype(jnp.float32)))
-
-    def hard_sync(arr):
-        return float(np.asarray(to_host(sum_fn(arr))))
+    dev = jax.devices()[0]
+    where = {"platform": dev.platform, "device_kind": dev.device_kind,
+             "device_count": len(jax.devices())}
 
     configs = ["mimo_2x2_reference", "mimo_4x4_wideband"]
     extra = ["fec_2x2_conv_k7", "ml_2x2_arb32", "sfo_2x2_100ppm"]
@@ -68,8 +61,8 @@ def main():
         extra = [args.only] if args.only in extra else []
     rc = 0
 
-    # ---- full-size FEC / ML / SFO capability rows (VERDICT r4 item 5):
-    # the three headline capability claims, each timed + error-gated at
+    # ---- full-size FEC / ML / SFO capability rows: the three
+    # headline capability claims, each timed + error-gated at
     # the reference operating point ----
     from rub_mimo_tpu.config import Detector, ModemConfig
 
@@ -95,15 +88,15 @@ def main():
 
             t0 = time.perf_counter()
             bits = step()
-            hard_sync(bits)
+            jax.block_until_ready(bits)
             compile_s = time.perf_counter() - t0
             n_iter = max(args.iters, 10)
             t0 = time.perf_counter()
             for _ in range(n_iter):
                 bits = step()
-            hard_sync(bits)
+            jax.block_until_ready(bits)
             sustained_ms = (time.perf_counter() - t0) / n_iter * 1e3
-            dec_bits = np.asarray(to_host(bits))
+            dec_bits = np.asarray(bits)
             cber = float((dec_bits != np.asarray(msg)).mean())
             line = {
                 "metric": "capability_fec_2x2_conv_k7",
@@ -115,7 +108,7 @@ def main():
                 "info_bits": int(np.asarray(msg).size),
                 "coded_ber": cber,
             }
-            print(json.dumps(line), flush=True)
+            print(json.dumps({**line, **where}), flush=True)
             if cber > 0.0:
                 rc = 1
         elif name == "ml_2x2_arb32":
@@ -130,16 +123,16 @@ def main():
             dec = rx.make_decoder(cfg)
             t0 = time.perf_counter()
             result = dec(capture)
-            hard_sync(result.rx_data)
+            jax.block_until_ready(result.rx_data)
             compile_s = time.perf_counter() - t0
             n_iter = max(args.iters, 10)
             t0 = time.perf_counter()
             for _ in range(n_iter):
                 last = dec(capture)
-            hard_sync(last.rx_data)
+            jax.block_until_ready(last.rx_data)
             sustained_ms = (time.perf_counter() - t0) / n_iter * 1e3
             n = cfg.pid_max * cfg.M_occupied
-            rxd = np.asarray(to_host(result.rx_data))
+            rxd = np.asarray(result.rx_data)
             errs = int((rxd[:, :n] != np.asarray(tx_data)[:, :n]).sum())
             ser = 100.0 * errs / (cfg.num_streams * n)
             line = {
@@ -152,7 +145,7 @@ def main():
                 "symbols": cfg.num_streams * n,
                 "ser_percent": round(ser, 4),
             }
-            print(json.dumps(line), flush=True)
+            print(json.dumps({**line, **where}), flush=True)
             if ser > 0.5:
                 rc = 1
         elif name == "sfo_2x2_100ppm":
@@ -171,17 +164,17 @@ def main():
             S, T = capture.shape
             t0 = time.perf_counter()
             result, delta, _ = sfo_mod.decode_with_sfo(capture, cfg)
-            hard_sync(result.rx_data)
+            jax.block_until_ready(result.rx_data)
             compile_s = time.perf_counter() - t0
             walls = []
             for _ in range(3):
                 t0 = time.perf_counter()
                 result, delta, _ = sfo_mod.decode_with_sfo(capture, cfg)
-                hard_sync(result.rx_data)
+                jax.block_until_ready(result.rx_data)
                 walls.append(time.perf_counter() - t0)
             wall_ms = sorted(walls)[len(walls) // 2] * 1e3
             n = cfg.pid_max * cfg.M_occupied
-            rxd = np.asarray(to_host(result.rx_data))
+            rxd = np.asarray(result.rx_data)
             errs = int((rxd[:, :n] != np.asarray(tx_data)[:, :n]).sum())
             ser = 100.0 * errs / (cfg.num_streams * n)
             line = {
@@ -192,11 +185,10 @@ def main():
                 "compile_s": round(compile_s, 1),
                 "samples": int(T),
                 "sfo_ppm_true": 100.0,
-                "sfo_ppm_hat": round(float(np.asarray(to_host(
-                    jnp.asarray(delta, jnp.float32)))) * 1e6, 3),
+                "sfo_ppm_hat": round(float(np.asarray(delta)) * 1e6, 3),
                 "ser_percent": round(ser, 4),
             }
-            print(json.dumps(line), flush=True)
+            print(json.dumps({**line, **where}), flush=True)
             if ser > 0.5:
                 rc = 1
 
@@ -209,18 +201,18 @@ def main():
 
         t0 = time.perf_counter()
         result = dec(capture)
-        hard_sync(result.rx_data)
+        jax.block_until_ready(result.rx_data)
         compile_s = time.perf_counter() - t0
 
         n_iter = max(args.iters, 10)
         t0 = time.perf_counter()
         for _ in range(n_iter):
             last = dec(capture)
-        hard_sync(last.rx_data)
+        jax.block_until_ready(last.rx_data)
         sustained_ms = (time.perf_counter() - t0) / n_iter * 1e3
 
         n = cfg.pid_max * cfg.M_occupied
-        rxd = np.asarray(to_host(result.rx_data))
+        rxd = np.asarray(result.rx_data)
         errs = int((rxd[:, :n] != np.asarray(tx_data)[:, :n]).sum())
         ser = 100.0 * errs / (cfg.num_streams * n)
         sps = S * T / (sustained_ms / 1e3)
@@ -235,9 +227,9 @@ def main():
             "symbols": cfg.num_streams * n,
             "ser_percent": round(ser, 4),
             "bit_exact": cfg.bit_exact,
-            "synced": bool(hard_sync(result.synced.astype(jnp.int32))),
+            "synced": bool(np.asarray(result.synced)),
         }
-        print(json.dumps(line), flush=True)
+        print(json.dumps({**line, **where}), flush=True)
         if ser > 0.5 or not line["synced"]:
             rc = 1
     return rc

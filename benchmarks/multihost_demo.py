@@ -2,8 +2,8 @@
 
 Launches N processes, each exposing K virtual CPU devices, joined with
 jax.distributed into one 2K-device runtime; the time-sharded decode then
-spans BOTH processes — the same program shape as a multi-host TPU pod
-(SURVEY §4's multi-host test recipe; BASELINE's >=2-host criterion).
+spans BOTH processes — the same program shape as a multi-host mesh
+(SURVEY §4's multi-host test recipe).
 
 Run directly:   python benchmarks/multihost_demo.py
 (or import run_worker from a test harness.)

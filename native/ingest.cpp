@@ -1,6 +1,6 @@
 // Native host-side IQ ingest runtime for rub_mimo_tpu.
 //
-// TPU-native successor of the reference's C++ I/O runtime: UHD's wire/CPU
+// Successor of the reference's C++ I/O runtime: UHD's wire/CPU
 // format conversion ("sc16" wire, "fc32" cpu — mimo/config.h:51-52), the
 // rx_worker capture loop that fwrites raw IQ to disk (mimo/main.cc:872-898)
 // and the pthread tx/rx pipeline (main.cc:1373-1386).  Here the radio is a

@@ -1,9 +1,9 @@
-"""rub_mimo_tpu — a TPU-native MIMO-OFDM modem framework.
+"""rub_mimo_tpu — a MIMO-OFDM modem framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the RUB_MIMO
+Built from scratch in JAX/XLA with the capabilities of the RUB_MIMO
 reference SDR testbed (see SURVEY.md).  The live-radio path is replaced by
 file/stream IQ replay; the per-sample C++ state machine becomes one pure,
-jit-compiled function over whole capture blocks, sharded across TPU meshes.
+jit-compiled function over whole capture blocks, sharded across device meshes.
 """
 
 from rub_mimo_tpu.config import (

@@ -3,7 +3,7 @@
 Mirrors the reference's boost::program_options flags (main.cc:174-250:
 --freq/-f, --rate/-r, --dsp_gain, --tx_gain, --rx_gain, --num_subcarriers,
 --cp_len, --rx_addr, --tx_addr, -v/-q) and replaces the live USRP
-experiment with the three file-replay workflows the TPU framework supports:
+experiment with the three file-replay workflows the framework supports:
 
   run       synthetic end-to-end experiment (TX -> simulated channel ->
             decode -> SER report), the stand-in for the over-the-air run
@@ -42,7 +42,7 @@ def _iq_imbalance_arg(value: str) -> tuple[float, float]:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        prog="rub-mimo-tpu", description="TPU-native MIMO-OFDM modem"
+        prog="rub-mimo-tpu", description="MIMO-OFDM modem"
     )
     sub = ap.add_subparsers(dest="command", required=True)
 
@@ -301,6 +301,9 @@ def main(argv=None):
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from rub_mimo_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     from rub_mimo_tpu.io import capture as capio
     from rub_mimo_tpu.io import simulator

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native MIMO-OFDM modem.
+"""Typed configuration for the MIMO-OFDM modem.
 
 This single dataclass covers the union of the reference's three config tiers
 (compile-time #defines in mimo/config.h, the boost::program_options CLI in

@@ -19,5 +19,6 @@ def mrc_combine(Y: jax.Array, G_occ: jax.Array, tx_stream: int) -> jax.Array:
     """Y: [..., n_rx, n_sc]; G_occ: [n_sc, rx, tx] -> [..., n_sc]."""
     g = G_occ[:, :, tx_stream]  # [n_sc, rx]
     denom = jnp.sum(jnp.real(g) ** 2 + jnp.imag(g) ** 2, axis=-1)  # [n_sc]
-    num = jnp.einsum("sr,...rs->...s", jnp.conj(g), Y)
+    num = jnp.einsum("sr,...rs->...s", jnp.conj(g), Y,
+                     precision=jax.lax.Precision.HIGHEST)
     return (num / denom[None, :]).astype(jnp.complex64)

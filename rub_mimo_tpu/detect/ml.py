@@ -1,4 +1,4 @@
-"""Joint maximum-likelihood MIMO detection — brute force on the MXU.
+"""Joint maximum-likelihood MIMO detection — brute force as batched matmuls.
 
 The optimal detector the reference's ZF approximates (framing.cc:1344-1367
 inverts the channel; ML searches it): per subcarrier and OFDM symbol,
@@ -6,7 +6,7 @@ inverts the channel; ML searches it): per subcarrier and OFDM symbol,
     s_hat = argmin_{s in A^T} | y - G s |^2
 
 over ALL constellation combinations of the T tx streams.  On a CPU this
-is the textbook "too expensive" detector; on TPU the search is one
+is the textbook "too expensive" detector; on an accelerator the search is one
 batched complex matmul + argmin:
 
     |y - Gs|^2 = |y|^2 - 2 Re(y^H G s) + |G s|^2
@@ -32,6 +32,8 @@ import jax.numpy as jnp
 
 from rub_mimo_tpu.config import ModemConfig
 from rub_mimo_tpu.ofdm import constellation
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,7 +65,8 @@ def ml_detect(
     pts_j = jnp.asarray(pts)
     idx_j = jnp.asarray(idx)
 
-    GS = jnp.einsum("krt,ct->krc", G_occ, pts_j)     # [n_sc, rx, C]
+    GS = jnp.einsum("krt,ct->krc", G_occ, pts_j,
+                    precision=_HIGHEST)     # [n_sc, rx, C]
     e = jnp.sum(jnp.abs(GS) ** 2, axis=1)            # [n_sc, C]
 
     nb = -(-n_sym // block)
@@ -74,7 +77,8 @@ def ml_detect(
 
     def one_block(yb):                               # [block, rx, n_sc]
         dot = jnp.real(
-            jnp.einsum("nrk,krc->nkc", jnp.conj(yb), GS)
+            jnp.einsum("nrk,krc->nkc", jnp.conj(yb), GS,
+                       precision=_HIGHEST)
         )                                            # [block, n_sc, C]
         best = jnp.argmin(e[None] - 2.0 * dot, axis=-1)
         return idx_j[best]                           # [block, n_sc, n_tx]
@@ -112,7 +116,8 @@ def ml_soft_llrs(
         bits.reshape(bits.shape[0], -1).astype(bool)
     )                                                        # [C, tx*bps]
 
-    GS = jnp.einsum("krt,ct->krc", G_occ, pts_j)
+    GS = jnp.einsum("krt,ct->krc", G_occ, pts_j,
+                    precision=_HIGHEST)
     e = jnp.sum(jnp.abs(GS) ** 2, axis=1)                    # [n_sc, C]
 
     nb = -(-n_sym // block)
@@ -129,7 +134,8 @@ def ml_soft_llrs(
     def one_block(yb):
         d2 = (
             jnp.sum(jnp.abs(yb) ** 2, axis=1)[:, :, None]
-            - 2.0 * jnp.real(jnp.einsum("nrk,krc->nkc", jnp.conj(yb), GS))
+            - 2.0 * jnp.real(jnp.einsum("nrk,krc->nkc", jnp.conj(yb), GS,
+                       precision=_HIGHEST))
             + e[None]
         )                                                    # [b, n_sc, C]
         outs = []

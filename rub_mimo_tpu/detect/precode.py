@@ -23,6 +23,8 @@ import jax
 import jax.numpy as jnp
 
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 def _normalize(P: jax.Array) -> jax.Array:
     """Scale each subcarrier's precoder to unit average TX power per
     stream: ||P[sc]||_F^2 == n_streams."""
@@ -44,7 +46,8 @@ def mmse_precoder(G_occ: jax.Array, noise_var: float) -> jax.Array:
     """Regularized (Wiener) precoder: P = G^H (G G^H + nI)^{-1}, normalized."""
     n = G_occ.shape[-1]
     Gh = jnp.conj(jnp.swapaxes(G_occ, -1, -2))
-    A = G_occ @ Gh + noise_var * jnp.eye(n, dtype=G_occ.dtype)
+    A = jnp.matmul(G_occ, Gh, precision=_HIGHEST) + noise_var * jnp.eye(
+        n, dtype=G_occ.dtype)
     P = jnp.swapaxes(
         jnp.linalg.solve(jnp.swapaxes(A, -1, -2), jnp.conj(G_occ)), -1, -2
     )
@@ -53,4 +56,4 @@ def mmse_precoder(G_occ: jax.Array, noise_var: float) -> jax.Array:
 
 def effective_channel(G_occ: jax.Array, P: jax.Array) -> jax.Array:
     """What the receiver sees after precoding: G @ P per subcarrier."""
-    return (G_occ @ P).astype(jnp.complex64)
+    return jnp.matmul(G_occ, P, precision=_HIGHEST).astype(jnp.complex64)

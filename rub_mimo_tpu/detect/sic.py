@@ -14,7 +14,7 @@ cheaper than the lattice.  Classic V-BLAST:
        deactivate its column
 
 Everything is batched over (symbols x subcarriers) — the per-stream loop
-is length T (2..4), so the MXU sees [n_sc, T, T] solves and
+is length T (2..4), so the device sees [n_sc, T, T] solves and
 [n_sym, n_sc, rx] cancellations, not scalar code.  Each cancellation
 removes a detected stream's interference, so later (weaker) streams see
 progressively cleaner observations — the detection-order gain ZF/MMSE
@@ -31,6 +31,8 @@ import jax.numpy as jnp
 
 from rub_mimo_tpu.config import ModemConfig
 from rub_mimo_tpu.ofdm import constellation
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def sic_equalize(
@@ -55,22 +57,26 @@ def sic_equalize(
     for _ in range(T):
         Gm = G * active[:, None, :]
         Gh = jnp.conj(jnp.swapaxes(Gm, -1, -2))
-        A = Gh @ Gm + nv * eyeT
+        A = jnp.matmul(Gh, Gm, precision=_HIGHEST) + nv * eyeT
         inv = jnp.linalg.inv(A)                      # [n_sc, T, T]
         err = jnp.real(jnp.diagonal(inv, axis1=-2, axis2=-1))
         err = jnp.where(active, err, big)
         j = jnp.argmin(err, axis=-1)                 # [n_sc]
         onehot = jax.nn.one_hot(j, T, dtype=jnp.complex64)  # [n_sc, T]
 
-        W0 = inv @ Gh                                # [n_sc, T, rx]
-        w = jnp.einsum("st,str->sr", onehot, W0)     # row j per sc
-        g_j = jnp.einsum("srt,st->sr", G, onehot)    # column j per sc
-        d = jnp.einsum("sr,sr->s", w, g_j)           # bias (W0 G)_jj
+        W0 = jnp.matmul(inv, Gh, precision=_HIGHEST)  # [n_sc, T, rx]
+        w = jnp.einsum("st,str->sr", onehot, W0,
+                       precision=_HIGHEST)           # row j per sc
+        g_j = jnp.einsum("srt,st->sr", G, onehot,
+                         precision=_HIGHEST)         # column j per sc
+        d = jnp.einsum("sr,sr->s", w, g_j,
+                       precision=_HIGHEST)           # bias (W0 G)_jj
         w = w / d[:, None]
 
-        s_hat = jnp.einsum("sr,nsr->ns", w, y)       # [n_sym, n_sc]
+        s_hat = jnp.einsum("sr,nsr->ns", w, y,
+                           precision=_HIGHEST)       # [n_sym, n_sc]
         eq_out = eq_out + jnp.einsum(
-            "ns,st->nts", s_hat, onehot
+            "ns,st->nts", s_hat, onehot, precision=_HIGHEST
         ).astype(jnp.complex64)
 
         dec = constellation.demodulate(s_hat, cfg.modulation)

@@ -7,7 +7,7 @@ track_phase fixes COMMON phase error only; this module tracks the full
 per-subcarrier MIMO matrix across the payload:
 
   blocks of `block_frames` OFDM symbols are processed sequentially
-  (lax.scan; each step batched over all subcarriers on the MXU):
+  (lax.scan; each step batched over all subcarriers):
 
     1. equalize the block with the carried Ghat (ZF)
     2. hard decisions -> remodulated reference symbols s_hat
@@ -30,6 +30,8 @@ from rub_mimo_tpu.config import ModemConfig
 from rub_mimo_tpu.detect import zf as zf_mod
 from rub_mimo_tpu.ofdm import constellation
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def ls_refit(
     Yblk: jax.Array,
@@ -43,9 +45,12 @@ def ls_refit(
     """
     S = Yblk.shape[1]
     eye = jnp.eye(S, dtype=jnp.complex64)
-    A = jnp.einsum("nts,nus->stu", s_hat, jnp.conj(s_hat))
-    B = jnp.einsum("nrs,nus->sru", Yblk, jnp.conj(s_hat))
-    return B @ jnp.linalg.inv(A + ridge * eye)
+    A = jnp.einsum("nts,nus->stu", s_hat, jnp.conj(s_hat),
+                   precision=_HIGHEST)
+    B = jnp.einsum("nrs,nus->sru", Yblk, jnp.conj(s_hat),
+                   precision=_HIGHEST)
+    return jnp.matmul(B, jnp.linalg.inv(A + ridge * eye),
+                      precision=_HIGHEST)
 
 
 def track_and_equalize(

@@ -1,11 +1,11 @@
 """Zero-forcing (channel-inversion) detection, batched per subcarrier.
 
-TPU-native replacement for invert() (mimo/framing.cc:1344-1367) and its
+Array-native replacement for invert() (mimo/framing.cc:1344-1367) and its
 application in execute_mimo_decode (framing.cc:557-586).  The reference's
 invert() is hardcoded 2x2 ("FIXME works only for 2 x 2", framing.cc:567);
 here the 2x2 closed form is replicated exactly and a general NxN path is
 added (adjugate-equivalent via det * inverse), so 4x4 wideband configs are
-batched MXU solves.
+batched solves.
 
 Reference algebra (INVERT_TO_UNITY=false, mimo/config.h:103):
     det  = G00 G11 - G01 G10
@@ -72,12 +72,9 @@ def equalize(
 
     Formulation note: the per-subcarrier contraction is written as an
     UNROLLED broadcast multiply-add over the (small, static) rx-stream
-    axis rather than an einsum.  XLA:TPU lowers the einsum to a batch of
-    [n_out, n_streams] x [n_streams, n_sym] matmuls per subcarrier —
-    K = n_streams = 2 starves the MXU and drags bf16 conversion passes
-    and chunked weight slicing into the hot path (~0.3 ms of the 2.2 ms
-    decode at the reference operating point); the unrolled form fuses
-    into one elementwise pass over Y.
+    axis rather than an einsum: with K = n_streams = 2 a matmul has
+    nothing to do, and the unrolled form fuses into one elementwise
+    pass over Y with exact float32 products.
     """
     S = W.shape[-1]
     Wt = jnp.moveaxis(W, 0, -1)  # [n_out, n_streams, n_sc]

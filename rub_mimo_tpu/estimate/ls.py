@@ -1,6 +1,6 @@
 """Least-squares MIMO channel estimation from the access-code pilots.
 
-TPU-native replacement for framesync::estimate_channel's LS phase
+Array-native replacement for framesync::estimate_channel's LS phase
 (mimo/framing.cc:801-824): for each access code and (rx, tx) pair, FFT the
 M-sample window at that code's matched-filter argmax offset and accumulate
 
@@ -49,8 +49,8 @@ def code_ffts(
     identical for every rx (matched_filter.finalize with joint=True
     broadcasts one global argmax).  All codes*S*S windows then live on a
     single dynamically-positioned span, extracted with static slices —
-    replacing the per-window dynamic-slice scan, whose sequential while
-    loop was ~0.3 ms of the ~3 ms full decode on TPU.  The slices are
+    replacing the per-window dynamic-slice scan and its sequential while
+    loop.  The slices are
     pure copies of the same elements, so the result is bit-identical to
     the scan path (asserted in tests/test_ls_uniform.py).
 

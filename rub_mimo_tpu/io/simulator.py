@@ -21,6 +21,8 @@ import numpy as np
 
 from rub_mimo_tpu.config import ModemConfig
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @dataclasses.dataclass(frozen=True)
 class ChannelSpec:
@@ -96,16 +98,16 @@ def apply_channel(
             2j * jnp.pi * jnp.asarray(rates[..., None]) * n[None, None, :]
         )  # [rx, tx, T]
         ht = h[..., 0][..., None] * rot
-        y = jnp.einsum("rtn,tn->rn", ht, tx)
+        y = jnp.einsum("rtn,tn->rn", ht, tx, precision=_HIGHEST)
     elif taps == 1:
-        y = jnp.einsum("rt,tn->rn", h[..., 0], tx)
+        y = jnp.einsum("rt,tn->rn", h[..., 0], tx, precision=_HIGHEST)
     else:
         # full convolution via FFT (lengths are large)
         L = T + taps - 1
         nfft = 1 << (L - 1).bit_length()
         Xf = jnp.fft.fft(tx, n=nfft, axis=-1)
         Hf = jnp.fft.fft(h, n=nfft, axis=-1)
-        Yf = jnp.einsum("rtn,tn->rn", Hf, Xf)
+        Yf = jnp.einsum("rtn,tn->rn", Hf, Xf, precision=_HIGHEST)
         y = jnp.fft.ifft(Yf, axis=-1)[:, :L]
 
     # CFO rotation
@@ -197,9 +199,7 @@ def simulate_capture(
         tx_data = framegen.generate_payload_symbols(cfg, seed=payload_seed)
     h = draw_channel(spec, cfg.num_streams, cfg.num_streams)
 
-    # one jitted program for the whole TX+channel chain: some TPU
-    # attachment paths cannot execute complex64 ops eagerly (see
-    # utils.transfer), and jit is faster anyway
+    # one jitted program for the whole TX+channel chain
     def _gen(td):
         tx = framegen.transmit_frame(cfg, td)
         return apply_channel(tx, jnp.asarray(h), spec, cfg)

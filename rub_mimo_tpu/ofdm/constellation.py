@@ -7,7 +7,7 @@ hand-rolled BPSK/QPSK tables (mimo/framing.cc:35-46).
 
 Demapping is hard-decision nearest-neighbour over the table — the same
 decision rule liquid applies for arbitrary modems — implemented as one
-batched matmul + argmax so it runs on the MXU for millions of symbols at
+batched matmul + argmax, one device program for millions of symbols at
 once (the reference does ~4M scalar demods serially, main.cc:1403-1411).
 """
 
@@ -198,12 +198,14 @@ def modulate(symbols: jax.Array, modulation: Modulation) -> jax.Array:
 
 
 def demodulate(y: jax.Array, modulation: Modulation) -> jax.Array:
-    """Hard-decision nearest-neighbour demapping, batched on the MXU.
+    """Hard-decision nearest-neighbour demapping, batched as one matmul.
 
     argmin_c |y - c|^2 = argmax_c ( Re(y) Re(c) + Im(y) Im(c) - |c|^2 / 2 )
 
     which is one real [N, 2] x [2, arity] matmul plus a bias — arbitrarily
-    shaped y is flattened and restored.
+    shaped y is flattened and restored.  The matmul runs at
+    Precision.HIGHEST: the scores pick the symbol, and a reduced-precision
+    (bf16 / TF32) pass would move decisions near a Voronoi boundary.
     """
     t = table(modulation)
     shape = y.shape
@@ -214,7 +216,8 @@ def demodulate(y: jax.Array, modulation: Modulation) -> jax.Array:
     )  # [2, arity]
     bias = jnp.asarray((np.abs(t) ** 2 / 2.0).astype(np.float32))
     scores = (
-        jnp.dot(yr, cm, preferred_element_type=jnp.float32) - bias[None, :]
+        jnp.dot(yr, cm, precision=jax.lax.Precision.HIGHEST,
+                preferred_element_type=jnp.float32) - bias[None, :]
     )
     return jnp.argmax(scores, axis=-1).astype(jnp.int32).reshape(shape)
 

@@ -1,6 +1,6 @@
 """TX frame generation: sync words + batched OFDM payload framing.
 
-TPU-native replacement for ``rx_beamforming::framegen``
+Array-native replacement for ``rx_beamforming::framegen``
 (mimo/framing.cc:79-266).  Where the reference assembles one OFDM symbol at
 a time per stream with per-symbol FFTW plans (assemble_mimo_packet,
 framing.cc:210-235, called in the tx_worker hot loop main.cc:1074-1112),
@@ -75,7 +75,8 @@ def assemble_payload(
     if precoder is not None:
         # antenna a transmits sum_k P[sc, a, k] * stream_k[sc]
         payload = jnp.einsum(
-            "sak,kns->ans", precoder.astype(jnp.complex64), payload
+            "sak,kns->ans", precoder.astype(jnp.complex64), payload,
+            precision=jax.lax.Precision.HIGHEST,
         )
     X = jnp.zeros((S, n_sym, M), dtype=jnp.complex64)
     X = X.at[:, :, occ].set(payload)

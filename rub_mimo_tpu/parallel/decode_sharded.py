@@ -2,7 +2,7 @@
 
 The headline distributed feature (SURVEY §5 long-context): the capture's
 time axis — millions of IQ samples the reference walks serially per sample
-(framing.cc:481) — is sharded across TPU chips in three shard_map stages:
+(framing.cc:481) — is sharded across devices in three shard_map stages:
 
   stage A — S&C sync: each shard computes the metric over its block with an
     (M-1)-sample overlap-save halo fetched from its left neighbor via
@@ -58,7 +58,6 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from rub_mimo_tpu.config import CommMode, Detector, ModemConfig
 from rub_mimo_tpu.estimate import ls
-from rub_mimo_tpu.kernels import eq_demap as demap_mod
 from rub_mimo_tpu.ofdm import constellation, sctype
 from rub_mimo_tpu.sync import matched_filter, schmidl_cox
 
@@ -74,42 +73,27 @@ class ShardedDecodeResult(NamedTuple):
     decode_start: jax.Array
     rx_sig: jax.Array
     rx_data: jax.Array
-    payload_perm: jax.Array | None = None
-    # int32[m_occ], set only when the TPU fused payload kernel ran:
-    # rx_sig/rx_data are then 3-D [S, pid_max, m_occ] grids, per-frame
-    # permuted (natural = out[..., perm]); scoring flattens + applies
-    # the gather host-side (same contract as pipeline.rx's
-    # payload_impl="fused_packed" — the device-side flatten would cost
-    # a ~75 us T(8,128)->T(2,128) retile per output)
 
 
 # --------------------------------------------------------------- stage A
-def _sync_stage(local: jax.Array, cfg: ModemConfig, n_time: int,
-                halo_impl: str = "ppermute",
-                mesh_axes: tuple = ("time",), interpret: bool = False):
-    """Per-shard sync: [S, Tloc] block -> (t_global [1], starts [1,S],
-    fired [1]) candidates for the global first-fire election.
+def halo_from_left(x: jax.Array, halo: int, n_time: int) -> jax.Array:
+    """The last ``halo`` samples of the left neighbour's block along the
+    'time' axis ([S, halo]; zeros on shard 0).  A ppermute, which XLA
+    lowers to a device-to-device collective."""
+    if n_time == 1:
+        return jnp.zeros((x.shape[0], halo), dtype=x.dtype)
+    return jax.lax.ppermute(
+        x[:, -halo:], "time", [(j, j + 1) for j in range(n_time - 1)]
+    )
 
-    halo_impl selects the neighbor exchange: "ppermute" (XLA collective,
-    default) or "pallas_dma" (explicit make_async_remote_copy kernel,
-    kernels/halo_dma.py — bit-identical, SURVEY §2.5 last row)."""
+
+def _sync_stage(local: jax.Array, cfg: ModemConfig, n_time: int):
+    """Per-shard sync: [S, Tloc] block -> (t_global [1], starts [1,S],
+    fired [1]) candidates for the global first-fire election."""
     S, Tloc = local.shape
     halo = cfg.M - 1
     me = jax.lax.axis_index("time")
-
-    if n_time > 1 and halo_impl == "pallas_dma":
-        from rub_mimo_tpu.kernels.halo_dma import ring_shift_right
-
-        left = ring_shift_right(
-            local[:, -halo:], axis_name="time", mesh_axes=mesh_axes,
-            n_dev=n_time, interpret=interpret,
-        )
-    elif n_time > 1:
-        left = jax.lax.ppermute(
-            local[:, -halo:], "time", [(j, j + 1) for j in range(n_time - 1)]
-        )
-    else:
-        left = jnp.zeros((S, halo), dtype=local.dtype)
+    left = halo_from_left(local, halo, n_time)
     ext = jnp.concatenate([left, local], axis=-1)
     block = min(1 << 15, Tloc + halo)
     metric_ext, corr_ext = schmidl_cox.sc_metric(ext, cfg.M, block=block)
@@ -176,8 +160,7 @@ def _coarse_sync_stage(local: jax.Array, cfg: ModemConfig, n_time: int,
     """Coarse+refine per-shard sync (stage A fast path).
 
     The full-rate per-shard metric scan (_sync_stage) reads every sample
-    ~8x; at the reference operating point it dominated a measured ~9 ms
-    1-device sharding overhead (round 4).  This stage ports the offline
+    ~8x.  This stage ports the offline
     coarse scan (sync/schmidl_cox._synchronize_coarse) into shard_map:
 
       - exact metric at D-aligned GLOBAL positions from per-D-block
@@ -228,9 +211,8 @@ def _coarse_sync_stage(local: jax.Array, cfg: ModemConfig, n_time: int,
         left = jnp.zeros((S, halo), dtype=local.dtype)
         right = jnp.zeros((S, rhalo), dtype=local.dtype)
     # ext coordinates: position i maps to global shard0 - halo + i, with
-    # the conceptual buffer ext_r = [left | local | right].  Round 5: the
-    # buffer is NEVER materialized — the shard-sized concatenate cost
-    # ~0.43 ms/decode of dynamic-update-slice copies (trace).  Instead:
+    # the conceptual buffer ext_r = [left | local | right].  The buffer
+    # is NEVER materialized (no shard-sized concatenate).  Instead:
     #   - block sums split at edge = halo + M2 into a small
     #     [left | local[:M2]] prefix plus sums over `local` itself
     #     (identical per-block values and summation order);
@@ -277,9 +259,8 @@ def _coarse_sync_stage(local: jax.Array, cfg: ModemConfig, n_time: int,
     _window_Lw = _make_window(Lw)
     _window_Lr = _make_window(Lr)
 
-    # ---- coarse pass (tile-aligned "coarse128" block sums, split so no
-    # shard-sized ext is formed; the sub-tile [S, nD, D] reshape of the
-    # plain formulation was ~2 ms of detile/retile while-loops) ----
+    # ---- coarse pass ("coarse128" indicator-matmul block sums, split
+    # so no shard-sized ext is formed) ----
     nD = Te // D
     kp, ke = M2 // D, M // D
     kM2 = M2 // D
@@ -426,10 +407,8 @@ def _region_stage(local: jax.Array, rstart: jax.Array, region_len: int):
     slices + psum (positions outside the capture read as zeros, matching
     the zero-initialized windowcf backing store).
 
-    Round 5: the old formulation padded the whole shard by region_len on
-    BOTH sides per run just to make every overlap an in-range slice —
-    a shard-sized copy (~0.4 ms at the operating point on a 1x1 mesh).
-    Now: one clamped in-range slice + a positional mask.  The mask only
+    One clamped in-range slice + a positional mask, so no shard-sized
+    padded copy is formed.  The mask only
     touches the region-sized result; shards with no overlap mask to
     zero.  Requires Tloc >= region_len (enforced by the caller's
     region-capacity check; the pad formulation remains as fallback)."""
@@ -535,7 +514,6 @@ def _payload_stage(
     n_sc: int,
     occ_idx: jax.Array,
     fuse_eq: bool,
-    use_fused_kernel: bool = False,
 ):
     """CP-strip + FFT the OFDM symbols whose start sample falls in this
     shard's time block, striped over the 'sc' axis.
@@ -579,12 +557,10 @@ def _payload_stage(
     # this device's windows form a UNIFORM stride = n_sc*sym grid from
     # rel0 + sc_rank*sym (>= 0 by construction of k0): grab the whole
     # span with ONE dynamic_slice and peel symbols with the dispatched
-    # strip_cp (the round-2 formulation vmapped a dynamic_slice per
-    # symbol, which XLA lowers to while-loops materializing shard-sized
-    # copies — measured as the bulk of an ~9 ms 1-device sharding
-    # overhead in round 4).  Unowned slots read zeros/garbage from the
-    # padded tail and are masked out before the psum scatter, exactly
-    # as before.
+    # strip_cp (a vmapped dynamic_slice per symbol lowers to while-loops
+    # materializing shard-sized copies).  Unowned slots read zeros or
+    # garbage from the padded tail and are masked out before the psum
+    # scatter.
     from rub_mimo_tpu.pipeline.rx import strip_cp
 
     stride = n_sc * sym
@@ -598,81 +574,9 @@ def _payload_stage(
     if span_len < nloc_sc * stride:
         span = jnp.pad(span, ((0, 0), (0, nloc_sc * stride - span_len)))
 
-    if use_fused_kernel:
-        from rub_mimo_tpu.kernels.payload_fused import strip_supported
-        from rub_mimo_tpu.ofdm import constellation as _const
-
-        _tab_n = len(_const.table(cfg.modulation))
-        if strip_supported(cfg.M, m_occ, S, _tab_n, stride):
-            # strip-fused per shard (late round 5): the kernel consumes
-            # the FLAT span planes and CP-strips in-kernel — the XLA
-            # strip chain below (supergroup pad/reshape/peel, the bulk
-            # of the remaining 1-device sharding overhead) disappears.
-            from rub_mimo_tpu.detect.weights import weights_from
-            from rub_mimo_tpu.kernels.payload_fused import (
-                payload_fused_strip)
-
-            W, gain = weights_from(cfg, G_occ, noise_var)
-            tab = np.asarray(_const.table(cfg.modulation))
-            sig, dat = payload_fused_strip(
-                jnp.real(span).astype(jnp.float32),
-                jnp.imag(span).astype(jnp.float32),
-                W, gain, tab, np.float32(1.0 / np.sqrt(m_occ)),
-                n_sym=nloc_sc, symbol_len=stride, cp_len=cfg.cp_len,
-            )  # [S, npad_loc >= nloc_sc, M] packed order
-            npad_loc = dat.shape[1]
-            owned_p = jnp.pad(owned, (0, npad_loc - nloc_sc))
-            ks_p = jnp.pad(ks, (0, npad_loc - nloc_sc))
-            dest = jnp.where(owned_p, ks_p, jnp.int32(cfg.pid_max))
-            sig_grid = jnp.zeros(
-                (S, cfg.pid_max + 1, m_occ), jnp.complex64
-            ).at[:, dest].add(jnp.where(owned_p[None, :, None], sig, 0))
-            dat_grid = jnp.zeros(
-                (S, cfg.pid_max + 1, m_occ), jnp.int32
-            ).at[:, dest].add(jnp.where(owned_p[None, :, None], dat, 0))
-            return (
-                jax.lax.psum(sig_grid[:, : cfg.pid_max], ("time", "sc")),
-                jax.lax.psum(dat_grid[:, : cfg.pid_max], ("time", "sc")),
-            )
-
     x_t = strip_cp(span, nloc_sc, stride, cfg.cp_len)
     if x_t.shape[-1] != cfg.M:
         x_t = x_t[:, :, : cfg.M]  # n_sc > 1: keep the first M past the CP
-
-    if use_fused_kernel:
-        # PACKED fused Pallas payload tail per shard (round 5): FFT +
-        # equalize + demap in one kernel on this device's own symbol
-        # stripe, outputs left in the kernel's packed subcarrier order
-        # (ShardedDecodeResult.payload_perm — same contract as the
-        # plain decode's payload_impl="fused_packed").  Replaces the
-        # XLA FFT (+ its internal relayouts), the XLA equalize, AND the
-        # replicated demap pass.  TPU only; gated statically by
-        # build_sharded_decoder (all-occupied ZF/MMSE geometry).  The
-        # kernel's float summation differs from the XLA FFT's, so
-        # sharded-vs-plain agreement on chip is evidence-checked by
-        # benchmarks/scaling.py --overhead rather than bit-guaranteed.
-        from rub_mimo_tpu.detect.weights import weights_from
-        from rub_mimo_tpu.kernels.payload_fused import payload_fused
-
-        W, gain = weights_from(cfg, G_occ, noise_var)
-        tab = np.asarray(constellation.table(cfg.modulation))
-        sig, dat = payload_fused(
-            x_t, W, gain, tab, np.float32(1.0 / np.sqrt(m_occ)),
-            packed=True,
-        )  # [S, nloc_sc*M] each (packed subcarrier order)
-        sig3 = sig.reshape(S, nloc_sc, cfg.M)
-        dat3 = dat.reshape(S, nloc_sc, cfg.M)
-        dest = jnp.where(owned, ks, jnp.int32(cfg.pid_max))
-        sig_grid = jnp.zeros(
-            (S, cfg.pid_max + 1, m_occ), jnp.complex64
-        ).at[:, dest].add(jnp.where(owned[None, :, None], sig3, 0))
-        dat_grid = jnp.zeros(
-            (S, cfg.pid_max + 1, m_occ), jnp.int32
-        ).at[:, dest].add(jnp.where(owned[None, :, None], dat3, 0))
-        return (
-            jax.lax.psum(sig_grid[:, : cfg.pid_max], ("time", "sc")),
-            jax.lax.psum(dat_grid[:, : cfg.pid_max], ("time", "sc")),
-        )
 
     x_t = jnp.moveaxis(x_t, 0, 1)  # [nloc_sc, S, M]
     X = jnp.fft.fft(x_t, axis=-1) * np.float32(1.0 / np.sqrt(m_occ))
@@ -772,11 +676,10 @@ def _estimate_stage(
     )
     # joint timing: each device's code chunk keeps the uniform
     # symbol-pitch grid (base shifted by start*S*sym), so the static-
-    # slice extraction applies — the per-window dynamic-slice scan was
-    # a ~0.34 ms sequential while-loop in the sharded program (round-5
-    # trace).  Only when n_sc divides the code count: a chunk holding
-    # PAD rows would extend its structural grid past the region end and
-    # the defensive base clamp would shift its REAL windows too.
+    # slice extraction applies instead of the sequential per-window
+    # dynamic-slice scan.  Only when n_sc divides the code count: a chunk
+    # holding PAD rows would extend its structural grid past the region
+    # end and the defensive base clamp would shift its REAL windows too.
     use_uniform = uniform and codes_pad == codes
     X_chunk = ls.code_ffts(region, off_chunk, cfg,
                            uniform=use_uniform)  # [chunk, S, S, M]
@@ -796,19 +699,13 @@ def _estimate_stage(
 
 
 def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
-                          halo_impl: str = "ppermute",
                           input_format: str = "complex"):
     """jit-compiled sharded decoder for [streams, T] captures placed with
     parallel.mesh.shard_capture (T must be a multiple of the 'time' size).
 
-    halo_impl: "ppermute" (default) or "pallas_dma" — the stage-A halo
-    exchange as an explicit Pallas remote-DMA kernel (interpret-mode
-    simulated on non-TPU meshes).
-
     input_format="planes": the decoder takes (re, im) float32 planes
     placed with parallel.mesh.shard_capture_planes instead of one
-    complex64 capture — removes the module-start c64 staging copies on
-    the split-plane TPU backend."""
+    complex64 capture."""
     S = cfg.num_streams
     M = cfg.M
     sym = cfg.symbol_len
@@ -825,10 +722,6 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
     occ_idx = jnp.asarray(sctype.occupied_indices(p))
     joint = (not cfg.bit_exact) and cfg.timing_mode == "joint"
     need_nv = cfg.detector == Detector.MMSE and cfg.mmse_auto_noise
-
-    if halo_impl not in ("ppermute", "pallas_dma"):
-        raise ValueError(f"unknown halo_impl {halo_impl!r}")
-    halo_interpret = mesh.devices.flat[0].platform != "tpu"
 
     spec_t = P(None, "time")
     # stage A: the coarse+refine fast path applies when the shard size
@@ -850,26 +743,17 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
         # quorum configs (robust 4x4) take the full-rate scan, which
         # supports it
         and cfg.sync_quorum is None
-        and halo_impl == "ppermute"
     )
 
     def _stage_a(local):
         if not coarse_ok:
-            return _sync_stage(
-                local, cfg=cfg, n_time=n_time, halo_impl=halo_impl,
-                mesh_axes=tuple(mesh.axis_names),
-                interpret=halo_interpret,
-            )
+            return _sync_stage(local, cfg=cfg, n_time=n_time)
         need_full, best_t, starts, fired, corr = _coarse_sync_stage(
             local, cfg, n_time, T
         )
 
         def full(_):
-            return _sync_stage(
-                local, cfg=cfg, n_time=n_time, halo_impl=halo_impl,
-                mesh_axes=tuple(mesh.axis_names),
-                interpret=halo_interpret,
-            )
+            return _sync_stage(local, cfg=cfg, n_time=n_time)
 
         def fast(_):
             # all-streams rule (coarse_ok excludes quorum): full mask
@@ -878,11 +762,8 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
         return jax.lax.cond(need_full, full, fast, operand=None)
 
     # The capture rides through every shard_map as (re, im) f32 planes
-    # and is combined INSIDE each stage body: a complex64 operand at a
-    # shard_map boundary forces this split-plane backend to materialize
-    # interleaved copies of the whole shard (two ~1 ms full-capture
-    # copy-starts in the round-5 trace); plane operands cross for free
-    # and the in-stage lax.complex fuses into the consuming math.
+    # and is combined INSIDE each stage body, where the lax.complex fuses
+    # into the consuming math.
     def _cx(fn):
         def wrapped(re, im, *rest):
             return fn(jax.lax.complex(re, im), *rest)
@@ -923,29 +804,14 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
     # per-symbol (everything except the cross-symbol Alamouti/tracking
     # tails): one grid assembly instead of two
     fuse_eq = cfg.mode != CommMode.ALAMOUTI and not cfg.track_channel
-    on_tpu = mesh.devices.flat[0].platform == "tpu"
-    _tab = constellation.table(cfg.modulation)
-    _occ_np = np.asarray(sctype.occupied_indices(p))
-    _all_occ = (_occ_np.size == M
-                and np.array_equal(_occ_np, np.arange(M)))
-    from rub_mimo_tpu.kernels import payload_fused as pf_mod
-    use_fused_payload = (
-        on_tpu and fuse_eq and _all_occ
-        and cfg.mode == CommMode.RX_ZF
-        and cfg.detector in (Detector.ZF, Detector.MMSE)
-        and not cfg.track_phase
-        and pf_mod.supported(M, m_occ, S, len(_tab))
-    )
     payload_sharded = jax.shard_map(
         _cx(functools.partial(
             _payload_stage, cfg=cfg, n_time=n_time, n_sc=n_sc,
             occ_idx=occ_idx, fuse_eq=fuse_eq,
-            use_fused_kernel=use_fused_payload,
         )),
         mesh=mesh,
         in_specs=(spec_t, spec_t, P(), P(None, None, None), P()),
-        out_specs=((P(None, None, None), P(None, None, None))
-                   if use_fused_payload else P(None, None, None)),
+        out_specs=P(None, None, None),
     )
     mf_sharded = jax.shard_map(
         functools.partial(_mf_stage, cfg=cfg, n_sc=n_sc, joint=joint),
@@ -1040,28 +906,6 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
         Ygrid = payload_sharded(iq_re, iq_im, pstart, G_occ, noise_var)
         from rub_mimo_tpu.detect.postprocess import postprocess_eq
 
-        if use_fused_payload:
-            # packed fused-kernel grids [S, pid, m_occ] (sig, data):
-            # already equalized + demapped on the owning devices; no
-            # replicated demap pass, no moveaxis (the grids are already
-            # stream-major).  Returned 3-D: flattening to [S, pid*m_occ]
-            # forces a T(8,128) -> T(2,128) retile per output (~75 us
-            # each on chip — same finding as the plain decode's packed
-            # outputs); payload_perm != None marks the 3-D packed
-            # contract, consumers flatten host-side.
-            sig_grid, dat_grid = Ygrid
-            rx_sig = sig_grid
-            rx_data = dat_grid
-            return ShardedDecodeResult(
-                synced=synced,
-                sync_index=sync_index,
-                sync_sample=t_star,
-                cfo_hat=cfo_total,
-                G=G,
-                decode_start=decode_start,
-                rx_sig=rx_sig,
-                rx_data=rx_data,
-            )
         if fuse_eq:
             out = Ygrid  # already equalized + postprocessed in-stage
         elif cfg.mode == CommMode.ALAMOUTI:
@@ -1085,21 +929,7 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
             out = postprocess_eq(eqg, cfg)
         sig3 = jnp.moveaxis(out, 0, 1)  # [S, pid, m_occ]
         rx_sig = sig3.reshape(S, cfg.pid_max * m_occ)
-        tab = constellation.table(cfg.modulation)
-        on_tpu = mesh.devices.flat[0].platform == "tpu"
-        if on_tpu and demap_mod.demap_supported(m_occ, len(tab)):
-            # VPU demap kernel (same scores/tie-break as demodulate —
-            # asserted by tests/test_kernels.py); the XLA demap's
-            # bf16-scored variadic argmax was ~0.48 ms of the 1-device
-            # sharding overhead (round-5 trace).  TPU only: the
-            # interpret-mode store clashes with the mesh jit's explicit
-            # sharding types, and non-TPU meshes match the offline
-            # demodulate anyway.
-            rx_data = demap_mod.demap(
-                sig3, np.asarray(tab), interpret=False,
-            ).reshape(S, cfg.pid_max * m_occ)
-        else:
-            rx_data = constellation.demodulate(rx_sig, cfg.modulation)
+        rx_data = constellation.demodulate(rx_sig, cfg.modulation)
         return ShardedDecodeResult(
             synced=synced,
             sync_index=sync_index,
@@ -1112,22 +942,11 @@ def build_sharded_decoder(cfg: ModemConfig, mesh: Mesh, T: int,
         )
 
     if input_format == "planes":
-        fn = jax.jit(run)
-    elif input_format == "complex":
+        return jax.jit(run)
+    if input_format == "complex":
         def run_complex(iq):
             return run(jnp.real(iq).astype(jnp.float32),
                        jnp.imag(iq).astype(jnp.float32))
 
-        fn = jax.jit(run_complex)
-    else:
-        raise ValueError(f"unknown input_format {input_format!r}")
-    if not use_fused_payload:
-        return fn
-    # attach the static permutation OUTSIDE the jitted program (a
-    # device-constant output would cost a per-run copy)
-    perm_np = pf_mod.packed_perm(M)
-
-    def fn_with_perm(*args):
-        return fn(*args)._replace(payload_perm=perm_np)
-
-    return fn_with_perm
+        return jax.jit(run_complex)
+    raise ValueError(f"unknown input_format {input_format!r}")

@@ -1,8 +1,8 @@
 """Device mesh setup for the sharded decode pipeline.
 
 The reference has no distributed layer at all (its "comm stack" is one
-pthread mutex + two condvars, mimo/main.cc:84-90).  The TPU-native design
-shards the modem over a 2-axis mesh:
+pthread mutex + two condvars, mimo/main.cc:84-90).  This design shards the
+modem over a 2-axis mesh:
 
   'time' — time-blocks of the capture (the SP/CP analog; SURVEY §2.6): the
            S&C metric and payload symbol decode are data-parallel in time
@@ -10,8 +10,9 @@ shards the modem over a 2-axis mesh:
   'sc'   — subcarriers (the "model dim"): per-subcarrier MIMO solves and
            equalization batch-shard over the 2048-carrier axis.
 
-Multi-host: call jax.distributed.initialize() before building the mesh;
-jax.make_mesh lays processes out so 'time' rides ICI within hosts first.
+The mesh follows the algorithm: the devices of one host are all joined
+to each other at the same rate, so any layout of the two axes works.
+Multi-process: call init_distributed() before building the mesh.
 """
 
 from __future__ import annotations
@@ -24,24 +25,17 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def init_distributed(
-    coordinator_address: Optional[str] = None,
-    num_processes: Optional[int] = None,
-    process_id: Optional[int] = None,
+    coordinator_address: str, num_processes: int, process_id: int
 ) -> None:
-    """Multi-host bring-up: jax.distributed.initialize with explicit or
-    environment-derived (TPU pod metadata) parameters.  Call once per host
-    before building the mesh; jax.devices() then spans all hosts and the
-    'time' axis rides ICI within hosts first, DCN across hosts."""
-    import jax
-
-    kwargs = {}
-    if coordinator_address is not None:
-        kwargs = dict(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
-    jax.distributed.initialize(**kwargs)
+    """Multi-process bring-up: jax.distributed.initialize with the
+    coordinator address (``host:port``), process count and this
+    process's id.  Call once per process before building the mesh;
+    jax.devices() then spans all processes."""
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
 
 
 def make_mesh(
@@ -83,12 +77,9 @@ def shard_capture(iq: jax.Array, mesh: Mesh) -> jax.Array:
 
 
 def shard_capture_planes(iq: jax.Array, mesh: Mesh):
-    """shard_capture, delivering (re, im) float32 planes — the
-    device-native format on the split-plane TPU backend (and what every
-    ingest path produces).  Feeding planes to
-    build_sharded_decoder(input_format="planes") removes the
-    module-start c64 staging copies (~1.3 ms/decode on a 1x1 mesh,
-    round-5 trace)."""
+    """shard_capture, delivering (re, im) float32 planes (what every
+    ingest path produces) for build_sharded_decoder(input_format=
+    "planes")."""
     import jax.numpy as jnp
 
     n_time = mesh.shape["time"]

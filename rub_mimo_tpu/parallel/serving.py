@@ -35,9 +35,8 @@ def make_sharded_batch_decoder(cfg: ModemConfig, mesh: Mesh,
     @functools.partial(jax.jit, in_shardings=(sharding,))
     def _decode_batch(iq_batch):
         # window_impl="xla_slow" alongside sync_impl="coarse_full":
-        # vmapping the scalar-prefetch Pallas window kernel hits JAX's
-        # explicit-loop batching fallback, and vmapping the lax.cond
-        # fast paths turns them into both-branches selects — the
+        # vmapping the lax.cond fast paths turns them into
+        # both-branches selects — the
         # non-cond formulations are the right ones under a batch axis
         # (same reason make_batch_decoder forces both, pipeline/rx.py)
         return jax.vmap(

@@ -80,25 +80,6 @@ def score(
     result = fetch_tree(result)  # one batched device->host conversion
     rx_data = np.asarray(result.rx_data)
     tx_data = np.asarray(tx_data)
-    if result.payload_perm is not None:
-        # payload_impl="fused_packed": outputs are per-frame permuted
-        # (natural = out[..., perm]) and may arrive 3-D
-        # [S, n_sym, M] (the kernel's free tile view); un-permute and
-        # flatten HOST-side so the hot decode path never pays the
-        # relayout the layout exists to avoid
-        perm = np.asarray(result.payload_perm)
-
-        def _unperm(a):
-            s0 = a.shape[0]
-            return np.ascontiguousarray(
-                a.reshape(s0, -1, perm.shape[0])[:, :, perm]
-            ).reshape(s0, -1)
-
-        rx_data = _unperm(rx_data)
-        result = result._replace(
-            rx_sig=(None if result.rx_sig is None
-                    else _unperm(np.asarray(result.rx_sig)))
-        )
     m_occ = cfg.M_occupied
     n = cfg.pid_max * m_occ
     valid_sym = np.asarray(result.symbol_valid)

@@ -1,6 +1,6 @@
 """Matched-filter timing refinement over the access-code region.
 
-TPU-native replacement for the channel estimator's offset search
+Array-native replacement for the channel estimator's offset search
 (mimo/framing.cc:702-744, USE_NEW_CHANNEL_EST): for every candidate offset
 i in [0, symbol_len), every rx stream, and every one of the
 1 + num_access_codes*num_streams sequences (S0 plus each (code, tx) access
@@ -63,12 +63,7 @@ _templates = templates  # backward-compat alias
 
 
 def _fft_len(n: int) -> int:
-    """Next power of two >= n.
-
-    A 5-smooth length (4320 instead of 8192 for the 4248-sample MF
-    windows) was tried in round 5 and measured SLOWER on chip (+57 us:
-    XLA:TPU's radix-3/5 stages insert extra layout copies that outweigh
-    the halved FLOPs at this small batch) — power of two stays."""
+    """Next power of two >= n."""
     return 1 << (n - 1).bit_length()
 
 
@@ -123,8 +118,8 @@ def corr_vals(
             )  # [S, n_tmpl, Lw]
         else:
             # traced bases (the 'sc'-sharded template chunks): a short
-            # scan of contiguous dynamic slices — the fast window-grab
-            # form on TPU (see utils.gather.slice_windows)
+            # scan of contiguous dynamic slices (see
+            # utils.gather.slice_windows)
             def _grab(carry, b):
                 win = jax.lax.dynamic_slice(
                     w, (jnp.int32(0), b.astype(jnp.int32)), (S, Lw)
@@ -137,9 +132,8 @@ def corr_vals(
         if isinstance(tmpl, np.ndarray):
             # static templates (the single-chip path): the template FFT
             # is config-constant, but XLA does NOT constant-fold the fft
-            # custom-call — the round-5 device timeline showed the
-            # [n_tmpl, L] template FFT chain re-running every decode
-            # (~30 us serialized).  Precompute conj(FFT) host-side.
+            # custom-call, so the [n_tmpl, L] template FFT would re-run
+            # every decode.  Precompute conj(FFT) host-side.
             # Float caveat: numpy's FFT rounds differently from XLA's in
             # ulps — same class as every dispatched-impl seam (argmax
             # consumers are tie-robust; parity tests gate the decode).
@@ -164,7 +158,8 @@ def corr_vals(
         gather = offs[:, :, None] + jnp.arange(M, dtype=jnp.int32)
         wins = window[:, gather]  # [S, n_tmpl, sym, M]
         dots = jnp.einsum(
-            "rqim,qm->rqi", wins, jnp.conj(tmpl)
+            "rqim,qm->rqi", wins, jnp.conj(tmpl),
+            precision=jax.lax.Precision.HIGHEST,
         )  # [S, n_tmpl, sym]
         vals = (
             jnp.real(dots) ** 2 + jnp.imag(dots) ** 2

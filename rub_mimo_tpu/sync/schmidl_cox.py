@@ -1,6 +1,6 @@
 """Schmidl&Cox frame synchronization as whole-block array ops.
 
-TPU-native replacement for the reference's per-sample sync state machine
+Array-native replacement for the reference's per-sample sync state machine
 (STATE_SEEK_PLATEAU, mimo/framing.cc:591-637):
 
   per sample, per stream (framing.cc:626-637):
@@ -30,7 +30,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from rub_mimo_tpu.config import ModemConfig
+from rub_mimo_tpu.utils.impl_select import best_impl, check_impl
 from rub_mimo_tpu.utils.movsum import delay, moving_sum
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class SyncResult(NamedTuple):
@@ -132,17 +135,15 @@ def coarse_block_sums(x: jax.Array, M2: int, nD: int, D: int,
     offline coarse scan and the sharded coarse stage
     (parallel.decode_sharded._coarse_sync_stage).
 
-    tile_aligned=True ("coarse128"): the [S, nD, D] reshape of the plain
-    formulation has a sub-tile minor dim (D <= 64), which XLA:TPU lowers
-    to a detile/retile while-loop pair per plane — ~0.17 ms per reshape
-    per million samples.  Instead reshape each f32 plane to chunks of
-    128 blocks (minor dim 128*D, a whole number of 128-lane tiles -> no
-    relayout) and compute the 128 block sums of a chunk as ONE MXU
-    matmul against a constant 0/1 block-indicator matrix.  NO
-    complex<->f32 views: this backend stores complex64 as split planes
-    and a view is a scalarized interleave (measured ~240 ms — the
-    dynwin/BENCH_r02 culprit).  Summation order differs between the two
-    formulations (dispatched-impl float caveat class)."""
+    tile_aligned=True ("coarse128"): reshape each f32 plane to chunks
+    of 128 blocks (minor dim 128*D) and compute the 128 block sums of a
+    chunk as ONE matmul against a constant 0/1 block-indicator matrix.
+    Summation order differs between the two formulations
+    (dispatched-impl float caveat class).
+
+    Every dot here runs at Precision.HIGHEST: these sums feed the 0.95
+    plateau threshold, and a reduced-precision (bf16 / TF32) pass would
+    move metric values across it."""
     S = x.shape[0]
     n_full = nD * D
     prod = jnp.conj(x[:, : n_full - M2]) * x[:, M2:n_full]
@@ -162,41 +163,36 @@ def coarse_block_sums(x: jax.Array, M2: int, nD: int, D: int,
         def bsum(q):  # [B, n_full] f32 -> [B, nD] per-block sums
             B = q.shape[0]
             q = jnp.pad(q, ((0, 0), (0, nDp * D - n_full)))
-            # ONE 2-D dot, not a batched einsum: with a chunk-group
-            # batch dim XLA re-streams the [chunk, 128] indicator
-            # constant for every group (~0.5 ms of bf16 slice DMA per
-            # full-capture pass, round-5 sharded trace); folding the
-            # groups into rows loads it once
+            # ONE 2-D dot, not a batched einsum: folding the chunk
+            # groups into rows loads the indicator constant once
             out = jnp.dot(
                 q.reshape(B * (nDp // 128), chunk), Bm,
-                preferred_element_type=jnp.float32,
+                precision=_HIGHEST, preferred_element_type=jnp.float32,
             )
             return out.reshape(B, nDp)[:, :nD]
 
         # all three planes (prod re/im, energy) through ONE dot: each
         # output row depends only on its own input row, so this is
-        # bit-identical to three separate calls while removing two
-        # serialized pad+reshape+matmul sequences from the device
-        # timeline (round-5 trace: ~5.4 us reshape + reduce each)
+        # bit-identical to three separate calls
         all3 = bsum(jnp.concatenate(
             [jnp.real(prod), jnp.imag(prod), e_in], axis=0))
         bs_p = jax.lax.complex(all3[:S], all3[S:2 * S])
         bs_e = all3[2 * S:]
     else:
-        # the D-block sums ride the MXU as a [*, D] x [D, 1] matmul — a
-        # plain reshape().sum(-1) lowers to while-loops carrying
-        # full-capture buffers on TPU (measured ~0.17 ms each)
+        # the D-block sums as a [*, D] x [D] contraction
         ones_d = jnp.ones((D,), jnp.float32)
         prod3 = prod.reshape(S, nD, D)
         bs_p = (
             jnp.einsum("snd,d->sn", jnp.real(prod3), ones_d,
+                       precision=_HIGHEST,
                        preferred_element_type=jnp.float32)
             + 1j * jnp.einsum("snd,d->sn", jnp.imag(prod3), ones_d,
+                              precision=_HIGHEST,
                               preferred_element_type=jnp.float32)
         ).astype(x.dtype)                                  # [S, nD] complex
         bs_e = jnp.einsum(
             "snd,d->sn", e_in.reshape(S, nD, D), ones_d,
-            preferred_element_type=jnp.float32,
+            precision=_HIGHEST, preferred_element_type=jnp.float32,
         )                                                  # [S, nD]
     return bs_p, bs_e
 
@@ -329,11 +325,10 @@ def _synchronize_coarse(
     Lr = (M - 1) + run_w
 
     # all K candidates refined in ONE batched metric computation: the K
-    # windows are sliced separately (tiny DMAs) but their metric +
-    # fire-rule math runs as single [K*S, .] / [K, S, .] ops — the
-    # round-5 device timeline showed the per-candidate formulation as 4
-    # serialized ~7 us fusions.  Bit-identical per candidate (every row
-    # of the batched ops depends only on its own window).
+    # windows are sliced separately (tiny copies) but their metric +
+    # fire-rule math runs as single [K*S, .] / [K, S, .] ops.
+    # Bit-identical per candidate (every row of the batched ops depends
+    # only on its own window).
     t_i = (cand_j + 1) * D + D - 1                     # [K]
     p0 = t_i - cp - 1                                  # first metric pos
     cl = jnp.clip(p0 - (M - 1), 0, T - Lw)             # [K]
@@ -488,23 +483,18 @@ def synchronize(
 ) -> SyncResult:
     """Full sync stage: metric + plateau scan + CFO estimate.
 
-    impl: "auto" consults the committed on-chip measurement table
+    impl: "auto" consults the committed on-device measurement table
     (utils.impl_select, regenerated by ``bench.py --check``) when the
     caller does not need the metric array, picking the fastest impl
     that passed the equality check on this backend; unmeasured backends
     fall back to "coarse".  "coarse" forces the coarse+refine path
-    (_synchronize_coarse); "xla" forces the chunked full scan; "pallas"
-    forces the fused one-pass kernel (kernels.sc_sync; interpret-mode
-    on non-TPU backends)."""
+    (_synchronize_coarse); "xla" forces the chunked full scan;
+    "coarse_full" is coarse without the prefix early-exit; the "...128"
+    variants use the indicator-matmul block sums.  Any other name
+    raises ValueError."""
+    check_impl("sync", impl)
     if impl == "auto" and not keep_metric:
-        from rub_mimo_tpu.utils.impl_select import best_impl
-
         impl = best_impl("sync", jax.default_backend())
-    if cfg.sync_quorum is not None and impl == "pallas":
-        # the fused one-pass kernel hardcodes the all-streams rule;
-        # quorum configs take the coarse path instead
-        impl = "coarse"
-    use_kernel = impl == "pallas"
     if impl in ("coarse_full", "coarse_full128") and not keep_metric:
         # plain coarse without the prefix early-exit: for vmapped
         # (batched) decodes, where vmap turns the prefix's lax.cond
@@ -512,35 +502,13 @@ def synchronize(
         # pure overhead there
         return _synchronize_coarse(x, cfg, block,
                                    impl == "coarse_full128")
-    if not use_kernel and not keep_metric and impl in (
-        "auto", "coarse", "coarse128"
-    ):
+    if not keep_metric and impl in ("auto", "coarse", "coarse128"):
         # coarse128: tile-aligned f32-plane block sums (see
         # _synchronize_coarse) — measured against "coarse" by
         # ``bench.py --check``; float summation order differs, so it is
         # a dispatched impl, not a silent replacement
         return _synchronize_coarse_prefix(x, cfg, block,
                                           impl == "coarse128")
-    if use_kernel:
-        from rub_mimo_tpu.kernels.sc_sync import sc_sync_fused
-
-        synced, t_star, starts, c_at = sc_sync_fused(
-            x, cfg.M, cfg.cp_len, cfg.plateau_threshold, block=block,
-            interpret=jax.default_backend() != "tpu",
-        )
-        sync_index = (jnp.sum(starts) // cfg.num_streams).astype(jnp.int32)
-        cfo_hat = jnp.angle(jnp.sum(-c_at)).astype(jnp.float32) / np.pi
-        return SyncResult(
-            synced=synced,
-            sync_sample=t_star,
-            sync_index=sync_index,
-            plateau_start=starts,
-            plateau_end=jnp.broadcast_to(
-                t_star, (cfg.num_streams,)
-            ).astype(jnp.int32),
-            metric=None,
-            cfo_hat=cfo_hat,
-        )
     # CFO note: the delayed product accumulates phase 2*pi*eps/M per
     # sample over an M/2 lag, so angle(P) = pi * eps (eps in
     # subcarrier-spacing units); the extra pi from the negated taps

@@ -2,12 +2,10 @@
 
 The obvious way to grab many M-sample windows at dynamic offsets —
 ``jax.vmap(lambda off, rx: lax.dynamic_slice(window[rx], (off,), (M,)))``
-— is a perf trap on TPU: the vmapped row index ``window[rx]`` becomes a
-batched gather of ENTIRE rows, which XLA lowers to a while loop that
-materializes one full window-length copy per batch element (measured:
-~40 ms of a 55 ms full-capture decode, carrying an f32[80, 1, 2.3M]
-loop buffer).  Flattening to one element-level gather of [n, length]
-indices makes the same operation ~free.
+— is a perf trap: the vmapped row index ``window[rx]`` becomes a
+batched gather of ENTIRE rows, which XLA can lower to a while loop that
+materializes one full window-length copy per batch element.  Flattening
+to one element-level gather of [n, length] indices avoids that.
 
 Semantics match the dynamic_slice version exactly, including the start
 clamp to [0, W - length] (out-of-range starts are clipped, not wrapped).
@@ -45,10 +43,8 @@ def slice_windows(
     arr: jax.Array, rows: jax.Array, starts: jax.Array, length: int
 ) -> jax.Array:
     """Same semantics as gather_windows, implemented as a lax.scan of
-    per-window dynamic_slice — the faster form on TPU, where large
-    element-level gathers run ~4x slower than a short sequence of
-    contiguous slice copies (measured at the reference operating point:
-    0.95 ms vs 3.5 ms for 80 x 2048-sample windows).  Each scan step
+    per-window dynamic_slice: a short sequence of contiguous slice
+    copies instead of one large element-level gather.  Each scan step
     slices one [1, length] row window (the row index is a dynamic slice
     START, not a gather), so no full-array copies enter the loop carry.
 

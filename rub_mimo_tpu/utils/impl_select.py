@@ -1,25 +1,23 @@
 """Measurement-driven implementation dispatch.
 
-Round 2 shipped a ~70x decode regression because an "auto" dispatch
-(pipeline.rx window_impl) hardcoded a branch to a Pallas kernel that had
-only ever been validated in interpret mode — nothing on the TPU side
-checked that the chosen path was *fast* (or even ran compiled) before it
-became the default.  This module makes that structurally impossible:
+An "auto" dispatch must never route the decode through an implementation
+that was not measured and equality-checked compiled on the device:
 
   - ``bench.py --check`` runs every backend-dispatched implementation
-    pair COMPILED on the attached backend, asserts output equality, and
-    records per-impl device milliseconds to a committed JSON table
+    COMPILED on the device, asserts output equality, and records
+    per-impl decode milliseconds to a committed JSON table
     (``rub_mimo_tpu/data/impl_timings.json``).
-  - The ``"auto"`` dispatches (pipeline.rx window grab,
-    sync.schmidl_cox sync impl, sync.matched_filter method) consult the
-    table via :func:`best_impl` and pick the fastest impl that PASSED
-    the equality check on this backend.  No measurement for this
-    backend -> the safe fallback (the plain XLA formulation), never an
-    unmeasured kernel.
+  - The ``"auto"`` dispatches (pipeline.rx window grab and CP strip,
+    sync.schmidl_cox sync impl) consult the table via :func:`best_impl`
+    and pick the fastest impl that PASSED the equality check on this
+    backend.  No measurement for this backend -> the safe fallback (the
+    plain XLA formulation).
 
 The table is data, not code: regenerating it (one ``bench.py --check``
-run on the attached chip) is the only way a non-fallback impl can win
-an auto dispatch.
+run on the device) is the only way a non-fallback impl can win an auto
+dispatch.  :data:`IMPLS` lists every name each dispatch point accepts;
+:func:`check_impl` rejects anything else, so a name that no longer
+exists fails loudly instead of falling through to another path.
 """
 
 from __future__ import annotations
@@ -46,12 +44,24 @@ FALLBACKS = {
     "payload": "xla",
 }
 
-# Impls that change the OUTPUT CONTRACT (not just speed): never chosen
-# by an "auto" dispatch — only by callers that opt in explicitly and
-# know how to consume the result (see DecodeResult.payload_perm).
-EXPLICIT_ONLY = {
-    "payload": frozenset({"fused_packed", "fused_strip"}),
+# Every implementation name each dispatch point accepts ("auto" aside).
+IMPLS = {
+    "window": ("xla", "xla_pad", "xla_slow"),
+    "sync": ("coarse", "coarse128", "coarse_full", "coarse_full128", "xla"),
+    "matched_filter": ("xcorr", "direct"),
+    "cpstrip": ("xla", "xla128"),
+    "payload": ("xla",),
 }
+
+
+def check_impl(point: str, impl: str) -> None:
+    """Raise ValueError unless ``impl`` is "auto" or a known name for
+    this dispatch point."""
+    if impl != "auto" and impl not in IMPLS[point]:
+        raise ValueError(
+            f"unknown {point} impl {impl!r}; expected 'auto' or one of "
+            f"{IMPLS[point]}"
+        )
 
 
 @functools.lru_cache(maxsize=1)
@@ -69,19 +79,14 @@ def reload_table() -> None:
 
 
 @functools.lru_cache(maxsize=64)
-def best_impl(point: str, backend: str,
-              include_explicit: bool = False) -> str:
+def best_impl(point: str, backend: str) -> str:
     """Fastest measured-and-equal impl for a dispatch point, or the safe
-    fallback when this backend has no passing measurements.
-
-    include_explicit=True also considers the EXPLICIT_ONLY impls (layout-
-    changing contracts) — for callers like bench.py that handle them."""
+    fallback when this backend has no passing measurements."""
     fallback = FALLBACKS[point]
     entry = _load_table().get(backend, {}).get(point, {})
-    excluded = () if include_explicit else EXPLICIT_ONLY.get(point, ())
     best, best_ms = fallback, None
     for impl, rec in entry.items():
-        if impl in excluded:
+        if impl not in IMPLS[point]:
             continue
         if not isinstance(rec, dict) or not rec.get("equal", False):
             continue

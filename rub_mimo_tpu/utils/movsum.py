@@ -11,7 +11,7 @@ A single float32 cumsum over multi-million-sample captures loses precision
 moving sum is computed per overlapping chunk (overlap-save): each chunk of
 length B is extended with w samples of left context, cumsum'd locally, and
 differenced.  Error scales with B, not T.  The same chunking is the seam
-used to shard the time axis across TPU chips (see rub_mimo_tpu/parallel).
+used to shard the time axis across devices (see rub_mimo_tpu/parallel).
 """
 
 from __future__ import annotations

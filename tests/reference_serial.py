@@ -3,7 +3,7 @@
 This module re-implements framesync's serial state machine exactly as the
 C++ does it — per-sample loops, liquid-style streaming filter state, the
 windowcf sliding buffer, per-code argmax, identity-biased Ghat — so the
-block/TPU pipeline can be validated against true reference SEMANTICS
+block pipeline can be validated against true reference SEMANTICS
 (SURVEY §6: "bit-exactness vs. a faithful CPU port of the chain").
 
 Only used by tests on tiny configs (it is deliberately slow).

@@ -69,8 +69,8 @@ def test_high_snr_error_free():
 
 
 # ---------------------------------------------------------------------
-# Golden curves: the pinned quantitative accuracy of the DSP chain
-# (VERDICT round-1 item 8).  tests/ber_points.py defines the grid;
+# Golden curves: the pinned quantitative accuracy of the DSP chain.
+# tests/ber_points.py defines the grid;
 # scripts/gen_ber_golden.py regenerates the JSON after intentional
 # accuracy changes.
 # ---------------------------------------------------------------------

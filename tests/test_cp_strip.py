@@ -1,13 +1,12 @@
-"""kernels.cp_strip: the Pallas CP-strip must be bit-identical to the
-XLA reshape+slice formulation (it is a pure copy).  Interpret-mode here;
-the compiled-on-TPU equality + timing gate is ``bench.py --check``
-(utils.impl_check), which is what lets "pallas" win the auto dispatch."""
+"""pipeline.rx.strip_cp: every CP-strip implementation must be
+bit-identical to the plain numpy reshape+slice (it is a pure copy).
+The compiled-on-device equality + timing gate that lets an impl win the
+"auto" dispatch is ``bench.py --check`` (utils.impl_check)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rub_mimo_tpu.kernels.cp_strip import cp_strip
 from rub_mimo_tpu.pipeline.rx import strip_cp
 
 
@@ -18,29 +17,31 @@ def _ref(payload, n_sym, sym, cp):
     )[:, :, cp:]
 
 
+@pytest.mark.parametrize("impl", ["xla", "xla128"])
 @pytest.mark.parametrize(
     "S,n_sym,sym,cp",
     [
         (2, 16, 2200, 152),   # reference shape ratios, 8 | 16
-        (2, 13, 2200, 152),   # n_sym not a multiple of block_syms
+        (2, 13, 2200, 152),   # n_sym not a multiple of 8
         (1, 5, 300, 44),      # odd little shapes
         (4, 8, 512, 128),
     ],
 )
-def test_matches_reshape_complex(S, n_sym, sym, cp):
+def test_matches_reshape_complex(S, n_sym, sym, cp, impl):
     rng = np.random.default_rng(0)
     pay = (rng.standard_normal((S, n_sym * sym))
            + 1j * rng.standard_normal((S, n_sym * sym))).astype(np.complex64)
-    got = cp_strip(jnp.asarray(pay), n_sym, sym, cp, interpret=True)
+    got = strip_cp(jnp.asarray(pay), n_sym, sym, cp, impl=impl)
     np.testing.assert_array_equal(np.asarray(got), _ref(pay, n_sym, sym, cp))
 
 
-def test_matches_reshape_float_and_long_payload():
+@pytest.mark.parametrize("impl", ["xla", "xla128"])
+def test_matches_reshape_float_and_long_payload(impl):
     rng = np.random.default_rng(1)
     n_sym, sym, cp = 7, 450, 50
     # payload longer than n_sym*sym: the excess must be ignored
     pay = rng.standard_normal((2, n_sym * sym + 301)).astype(np.float32)
-    got = cp_strip(jnp.asarray(pay), n_sym, sym, cp, interpret=True)
+    got = strip_cp(jnp.asarray(pay), n_sym, sym, cp, impl=impl)
     np.testing.assert_array_equal(np.asarray(got), _ref(pay, n_sym, sym, cp))
 
 

@@ -100,7 +100,7 @@ def test_full_geometry_single_seed():
     20 access codes; reduced frames keep the O(T*M) per-sample port
     tractable) — the block pipeline must reproduce the per-sample state
     machine's sync index, per-code argmaxes, and Ghat at full size, not
-    just on tiny dims (VERDICT r4 item 8)."""
+    just on tiny dims."""
     from rub_mimo_tpu.config import ModemConfig
 
     cfg = ModemConfig(pid_max=2, bit_exact=True)

@@ -1,6 +1,6 @@
 """Live (per-chunk) SFO correction in the streaming decoder.
 
-VERDICT round-1 item 6: carry resampler fractional phase across chunks so
+Carry resampler fractional phase across chunks so
 --sfo-correct works live.  The StreamingResampler keeps a continuous
 input-position cursor (the carried fractional phase); the decoder
 accumulates the offline estimator's frame-differential moment on device

@@ -75,7 +75,7 @@ def test_burst_straddles_shard_boundary():
 
 
 def test_shard_smaller_than_halo_takes_full_scan():
-    """Round-5 regression (ADVICE high #1): shards sized between the old
+    """Regression: shards sized between the old
     coarse_ok threshold and the coarse stage's own left halo silently
     truncated `local[:, -halo:]` and misaligned every ext/global
     coordinate.  Such shard sizes must take the full-rate scan and match
@@ -116,7 +116,7 @@ def test_shard_smaller_than_halo_takes_full_scan():
 
 
 def test_fire_past_shard_boundary_matches_offline():
-    """Round-5 regression (ADVICE high #2): a shard's last local pair
+    """Regression: a shard's last local pair
     owns fires in [shard_end, shard_end + cp]; without a right halo the
     refine window clamped and duplicated the last in-shard metric
     sample, fabricating/misplacing boundary fires.  Sweep the burst so

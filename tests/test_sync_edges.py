@@ -1,4 +1,4 @@
-"""Adversarial edge tests for the coarse sync path (VERDICT r3 item 7).
+"""Adversarial edge tests for the coarse sync path.
 
 The coarse+refine scan (sync/schmidl_cox._synchronize_coarse) and its
 prefix early-exit wrapper carry several lax.cond fallbacks that normal

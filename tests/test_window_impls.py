@@ -1,7 +1,7 @@
 """Every extract_payload impl must implement the same function: the
 reference windowcf's read-zeros slice semantics (framing.cc:284, 639-651)
 for ANY start — negative, interior, overrunning, or fully outside.  The
-compiled-on-TPU equality + timing gate is ``bench.py --check``; this is
+compiled-on-device equality + timing gate is ``bench.py --check``; this is
 the semantic gate on the virtual-device CPU mesh."""
 
 import jax.numpy as jnp
