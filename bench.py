@@ -7,12 +7,11 @@ payload frames, 32-ary modem (mimo/config.h:65-66,92,104-108) — a
 ~4.6M-IQ-sample capture, decoded as one jit-compiled program.
 
 Methodology:
-  - the headline value is derived from jax.profiler DEVICE time — the
-    median duration of the decode executable's run on the device across
-    the timed iterations (parsed from the trace's device planes).  When
-    the trace has no device module events the bench reports SUSTAINED
-    wall time instead (N dispatches queued back-to-back, one
-    block_until_ready at the end) and says so in the "method" field.
+  - the headline value is SUSTAINED wall time: N decodes queued
+    back-to-back, one block_until_ready at the end, divided by N.  The
+    per-iteration wall times (block_until_ready after each decode) are
+    reported beside it.  Per-stage device time from a profiler trace is
+    benchmarks/stage_times.py's job.
   - every line names the platform, device kind and device count it ran
     on; a number from the CPU is never a device number.
   - every run scores the decode against the ground-truth tx symbols and
@@ -25,55 +24,15 @@ its (serial, per-sample, offline) decoder must meet to keep up with the
 air interface.  vs_baseline = achieved samples/s / 2.0e6.
 
 Prints one JSON line:
-  {"metric", "value", "unit", "vs_baseline", "method", "device_ms",
-   "sustained_ms", "wall_median_ms", "wall_best_ms", "ser_percent",
+  {"metric", "value", "unit", "vs_baseline", "method", "sustained_ms", "wall_median_ms", "wall_best_ms", "ser_percent",
    "platform", "device_kind", "device_count"}
 """
 
 import argparse
-import glob
 import json
-import os
 import statistics
 import sys
-import tempfile
 import time
-
-
-def _device_times_ms(trace_dir: str):
-    """Parse a jax.profiler trace: per-run device durations (ms) of the
-    XLA module executions, plus an op-name -> total-ms aggregation.
-
-    Looks for device planes ('/device:...').  Returns ([], {}) when no
-    device events are found — callers fall back to wall timing.
-    """
-    import jax
-
-    files = glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
-                      recursive=True)
-    if not files:
-        return [], {}
-    pd = jax.profiler.ProfileData.from_file(files[0])
-    runs = []
-    ops = {}
-    for plane in pd.planes:
-        name = plane.name or ""
-        if "/device:" not in name:
-            continue
-        for line in plane.lines:
-            lname = (line.name or "").lower()
-            if "module" in lname or "step" in lname:
-                for e in line.events:
-                    if e.duration_ns > 0:
-                        runs.append(e.duration_ns / 1e6)
-            elif "op" in lname or "xla" in lname:
-                for e in line.events:
-                    if e.duration_ns > 0:
-                        ops[e.name] = ops.get(e.name, 0.0) + e.duration_ns / 1e6
-    if not runs and ops:
-        # no module line: treat summed op time as one aggregate run
-        runs = [sum(ops.values())]
-    return runs, ops
 
 
 def main():
@@ -85,11 +44,6 @@ def main():
     ap.add_argument("--iters", type=int, default=15,
                     help="timed repetitions; median is reported (best-of is "
                          "recorded separately)")
-    ap.add_argument("--profile", type=str, default=None, metavar="OUT.json",
-                    help="also write a per-op device-time breakdown JSON")
-    ap.add_argument("--trace-dir", type=str, default=None,
-                    help="keep the raw profiler trace here (TensorBoard/"
-                         "Perfetto-loadable) instead of a temp dir")
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--cpu", action="store_true", help="force CPU backend")
     ap.add_argument("--check", action="store_true",
@@ -165,26 +119,13 @@ def main():
     jax.block_until_ready(result.rx_data)
     compile_s = time.perf_counter() - t0
 
-    # ---- timed iterations under a profiler trace ----
-    trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="rub_mimo_trace_")
+    # ---- timed iterations, one barrier each ----
     times = []
-    traced = True
-    try:
-        jax.profiler.start_trace(trace_dir)
-    except Exception as e:  # tracing must never kill the bench
-        traced = False
-        if args.verbose:
-            print(f"profiler unavailable: {e}", file=sys.stderr)
     for _ in range(args.iters):
         t0 = time.perf_counter()
         result = dec(capture_in)
         jax.block_until_ready(result.rx_data)
         times.append(time.perf_counter() - t0)
-    if traced:
-        try:
-            jax.profiler.stop_trace()
-        except Exception:
-            traced = False
 
     # ---- sustained throughput: queue N dispatches, block once ----
     sustain_n = max(args.iters, 30)
@@ -194,26 +135,9 @@ def main():
     jax.block_until_ready(last.rx_data)
     sustained_ms = (time.perf_counter() - t0) / sustain_n * 1e3
 
-    device_runs, op_ms = ([], {})
-    if traced:
-        try:
-            device_runs, op_ms = _device_times_ms(trace_dir)
-        except Exception as e:
-            if args.verbose:
-                print(f"trace parse failed: {e}", file=sys.stderr)
-
     wall_median = statistics.median(times)
     wall_best = min(times)
-    total_samples = S * T * args.batch
-
-    if device_runs:
-        device_ms = statistics.median(device_runs)
-        sps = total_samples / (device_ms / 1e3)
-        method = "profiler_device_time"
-    else:
-        device_ms = None
-        sps = total_samples / (sustained_ms / 1e3)
-        method = "sustained_wall"
+    sps = S * T * args.batch / (sustained_ms / 1e3)
 
     # ---- correctness: every bench run scores the decode ----
     rxd = np.asarray(result.rx_data)
@@ -229,8 +153,7 @@ def main():
         "value": round(sps, 1),
         "unit": "IQ samples/s/chip",
         "vs_baseline": round(sps / baseline_sps, 3),
-        "method": method,
-        "device_ms": round(device_ms, 4) if device_ms is not None else None,
+        "method": "sustained_wall",
         "sustained_ms": round(sustained_ms, 4),
         "wall_median_ms": round(wall_median * 1e3, 3),
         "wall_best_ms": round(wall_best * 1e3, 3),
@@ -241,26 +164,9 @@ def main():
     }
     print(json.dumps(line), flush=True)
 
-    if args.profile:
-        top = sorted(op_ms.items(), key=lambda kv: -kv[1])
-        with open(args.profile, "w") as f:
-            json.dump({
-                "device_runs_ms": device_runs,
-                "wall_times_ms": [t * 1e3 for t in times],
-                "compile_s": compile_s,
-                "trace_dir": trace_dir if args.trace_dir else None,
-                "op_time_ms_total": sum(op_ms.values()),
-                "top_ops_ms": top[:40],
-            }, f, indent=2)
-        if args.verbose:
-            print(f"profile written to {args.profile}", file=sys.stderr)
-
     if args.verbose:
         print(f"compile+first run: {compile_s:.2f}s", file=sys.stderr)
         print(f"times: {[f'{t*1000:.1f}ms' for t in times]}", file=sys.stderr)
-        if device_runs:
-            print(f"device runs: {[f'{d:.3f}ms' for d in device_runs]}",
-                  file=sys.stderr)
         if args.batch == 1:
             report.score(result, tx_data, cfg, decode_seconds=wall_median,
                          num_samples=T).print()

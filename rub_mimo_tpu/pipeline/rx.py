@@ -239,22 +239,17 @@ def decode(
     sync_impl: str = "auto",
     window_impl: str = "auto",
     cpstrip_impl: str = "auto",
-    payload_impl: str = "auto",
 ) -> DecodeResult:
     """Decode a whole capture. iq: [num_streams, T] complex64.
 
     sync_impl: forwarded to sync.schmidl_cox.synchronize (batched,
     vmapped decodes pass "coarse_full").
 
-    payload_impl: "auto" or "xla" — the payload tail (CP strip, FFT,
-    equalize, demap) is plain XLA; any other name raises ValueError.
-
     window_impl: "auto" consults the committed on-chip measurement
     table (utils.impl_select, regenerated by ``bench.py --check``) and
     picks the fastest impl that passed the equality check on this
     backend — falling back to "xla" (the clamp+roll+mask formulation,
     vmappable; batched decodes force it) when unmeasured."""
-    check_impl("payload", payload_impl)
     S = cfg.num_streams
     M = cfg.M
     m_occ = cfg.M_occupied
@@ -448,8 +443,7 @@ def decode(
 
 
 def make_decoder(cfg: ModemConfig, *, keep_debug: bool = False,
-                 mf_method: str = "xcorr", payload_impl: str = "auto",
-                 input_format: str = "complex"):
+                 mf_method: str = "xcorr", input_format: str = "complex"):
     """jit-compiled decode closure for a fixed config.
 
     input_format="planes": the closure takes (re, im) float32 planes
@@ -458,8 +452,7 @@ def make_decoder(cfg: ModemConfig, *, keep_debug: bool = False,
     import functools
 
     def _run(iq):
-        return decode(iq, cfg, keep_debug=keep_debug, mf_method=mf_method,
-                      payload_impl=payload_impl)
+        return decode(iq, cfg, keep_debug=keep_debug, mf_method=mf_method)
 
     if input_format == "planes":
         @functools.partial(jax.jit, static_argnames=())
@@ -516,7 +509,6 @@ def decode_all(
 
 
 def make_serving_decoder(cfg: ModemConfig, *, mf_method: str = "xcorr",
-                         payload_impl: str = "auto",
                          input_format: str = "complex"):
     """THROUGHPUT-serving decoder: decode a stack of captures in ONE
     device program via ``lax.scan`` over the batch axis.
@@ -534,7 +526,7 @@ def make_serving_decoder(cfg: ModemConfig, *, mf_method: str = "xcorr",
     import functools
 
     def _one(iq):
-        r = decode(iq, cfg, mf_method=mf_method, payload_impl=payload_impl)
+        r = decode(iq, cfg, mf_method=mf_method)
         return r._replace(metric=None, mf_traces=None)
 
     if input_format == "planes":
@@ -574,8 +566,7 @@ def make_batch_decoder(cfg: ModemConfig, *, mf_method: str = "xcorr"):
         return jax.vmap(
             lambda iq: decode(iq, cfg, keep_debug=False,
                               mf_method=mf_method, sync_impl="coarse_full",
-                              window_impl="xla_slow", cpstrip_impl="xla",
-                              payload_impl="xla")
+                              window_impl="xla_slow", cpstrip_impl="xla")
         )(iq_batch)
 
     return _decode_batch

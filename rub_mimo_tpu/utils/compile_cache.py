@@ -22,14 +22,13 @@ def cache_dir() -> str:
     return os.environ.get(ENV_VAR) or DEFAULT_DIR
 
 
-def enable(min_compile_time_secs: float = 1.0) -> str:
+def enable() -> str:
     """Point JAX's persistent compilation cache at :func:`cache_dir` and
-    cache every program that took at least ``min_compile_time_secs`` to
-    compile.  Returns the directory."""
+    cache every program that took at least a second to compile.  Returns
+    the directory."""
     import jax
 
     path = cache_dir()
     jax.config.update("jax_compilation_cache_dir", path)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                      min_compile_time_secs)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     return path

@@ -121,16 +121,14 @@ def run_check(frames: int = 1000, iters: int = 12, verbose: bool = False,
     fb = impl_select.FALLBACKS
 
     def mk_decode(window_impl=None, sync_impl=None, mf_method=None,
-                  cpstrip_impl=None, payload_impl=None):
+                  cpstrip_impl=None):
         w = window_impl or fb["window"]
         s = sync_impl or fb["sync"]
         m = mf_method or fb["matched_filter"]
         c = cpstrip_impl or fb["cpstrip"]
-        p = payload_impl or fb["payload"]
         return jax.jit(
             lambda x: rx.decode(x, cfg, window_impl=w, sync_impl=s,
-                                mf_method=m, cpstrip_impl=c,
-                                payload_impl=p)
+                                mf_method=m, cpstrip_impl=c)
         )
 
     points = {
@@ -149,10 +147,6 @@ def run_check(frames: int = 1000, iters: int = 12, verbose: bool = False,
         "cpstrip": (
             ["xla", "xla128"],
             lambda impl: mk_decode(cpstrip_impl=impl),
-        ),
-        "payload": (
-            ["xla"],
-            lambda impl: mk_decode(payload_impl=impl),
         ),
     }
 

@@ -41,7 +41,6 @@ FALLBACKS = {
     "sync": "coarse",
     "matched_filter": "xcorr",
     "cpstrip": "xla",
-    "payload": "xla",
 }
 
 # Every implementation name each dispatch point accepts ("auto" aside).
@@ -50,7 +49,6 @@ IMPLS = {
     "sync": ("coarse", "coarse128", "coarse_full", "coarse_full128", "xla"),
     "matched_filter": ("xcorr", "direct"),
     "cpstrip": ("xla", "xla128"),
-    "payload": ("xla",),
 }
 
 

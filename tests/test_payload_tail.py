@@ -1,7 +1,7 @@
 """The payload tail (CP strip + FFT + equalize + demap) is plain XLA: it
 must reproduce a numpy FFT + ZF/MMSE + nearest-neighbour chain, decode
-every geometry end to end, and refuse implementation names that no
-longer exist."""
+every geometry end to end, and refuse implementation names and options
+that no longer exist."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +11,7 @@ from rub_mimo_tpu.config import Detector, ModemConfig, Modulation
 from rub_mimo_tpu.detect import mmse, zf
 from rub_mimo_tpu.io import simulator
 from rub_mimo_tpu.ofdm import constellation
+from rub_mimo_tpu.parallel import decode_sharded
 from rub_mimo_tpu.pipeline import report, rx
 from rub_mimo_tpu.sync import schmidl_cox
 from rub_mimo_tpu.utils import impl_select
@@ -73,17 +74,13 @@ _GEOMETRIES = {
 @pytest.mark.parametrize("geom", list(_GEOMETRIES))
 def test_decode_geometry_ser_zero(geom):
     """Every geometry the payload tail serves decodes its payload exactly
-    at high SNR, with decisions identical between payload_impl "auto"
-    and the explicit "xla"."""
+    at high SNR."""
     cfg = ModemConfig(pid_max=6, bit_exact=False, **_GEOMETRIES[geom])
     snr = 45.0 if cfg.modulation == Modulation.QAM256 else 30.0
     spec = simulator.ChannelSpec(snr_db=snr, delay=2000, seed=9)
     capture, tx_data, _ = simulator.simulate_capture(cfg, spec)
     r = rx.decode(jnp.asarray(capture), cfg)
-    r_x = rx.decode(jnp.asarray(capture), cfg, payload_impl="xla")
     assert bool(r.synced)
-    np.testing.assert_array_equal(np.asarray(r.rx_data),
-                                  np.asarray(r_x.rx_data))
     n = cfg.pid_max * cfg.M_occupied
     errs = int(np.sum(np.asarray(r.rx_data)[:, :n]
                       != np.asarray(tx_data)[:, :n]))
@@ -114,17 +111,28 @@ def test_report_scoring_of_decode():
     assert all(e < 5.0 for e in rep.evm_percent)
 
 
-@pytest.mark.parametrize("backend", ["cpu", "gpu"])
-def test_auto_payload_is_xla(backend):
+@pytest.mark.parametrize("point", sorted(impl_select.FALLBACKS))
+def test_auto_impl_on_gpu_is_the_fallback(point):
+    """The table holds no GPU row, so "auto" on the GPU takes the plain
+    XLA fallback of every dispatch point."""
     impl_select.best_impl.cache_clear()
-    assert impl_select.best_impl("payload", backend) == "xla"
+    assert impl_select.best_impl(point, "gpu") == impl_select.FALLBACKS[point]
+
+
+@pytest.mark.parametrize("entry,option", [
+    (rx.decode, "payload_impl"),
+    (rx.make_decoder, "payload_impl"),
+    (rx.make_serving_decoder, "payload_impl"),
+    (decode_sharded.build_sharded_decoder, "halo_impl"),
+])
+def test_removed_options_are_rejected(entry, option):
+    """The options that only chose a removed kernel are gone: passing one
+    fails instead of being ignored."""
+    with pytest.raises(TypeError, match=option):
+        entry(**{option: "xla"})
 
 
 @pytest.mark.parametrize("point,name", [
-    ("payload", "fused"),
-    ("payload", "fused_packed"),
-    ("payload", "fused_strip"),
-    ("payload", "eqdemap"),
     ("sync", "pallas"),
     ("cpstrip", "pallas"),
     ("window", "dynwin"),
@@ -136,8 +144,6 @@ def test_removed_impl_names_raise(point, name):
 
 def test_removed_names_raise_through_entry_points(tcfg):
     cap = jnp.zeros((tcfg.num_streams, 4096), jnp.complex64)
-    with pytest.raises(ValueError, match="fused_packed"):
-        rx.decode(cap, tcfg, payload_impl="fused_packed")
     with pytest.raises(ValueError, match="pallas"):
         schmidl_cox.synchronize(cap, tcfg, impl="pallas")
     with pytest.raises(ValueError, match="pallas"):
